@@ -1,10 +1,9 @@
 """Helmholtz k-ladder: pollution error vs hp budget, plus the ladder fix.
 
 Round 4 shipped the oscillatory/indefinite family at a single wavenumber
-(k = 9, ~3 wavelengths/axis) with an INVERTED preset ladder (quality
-4.21e-4 in 1058.8 s vs precision 3.41e-4 in 178.9 s, attributed to relay
-windows).  This study (VERDICT round-5 asks #2 and #8) measures, in ONE
-process so every row shares a relay window:
+(k = 9, ~3 wavelengths/axis) with an INVERTED preset ladder (the soft-BC
+quality preset, 4.21e-4, cost more than the precision preset, 3.41e-4).
+This study measures, in ONE process so every row shares the device:
 
 1. `lad9` — the k = 9 preset ladder re-measure: quality-soft (the round-4
    preset), quality-hard (the same budgets under the hard-BC Coons trace
@@ -99,11 +98,9 @@ def arm_kfix():
 
 def _quality_k(k, elems):
     """The retuned quality recipe (hard-BC 5k+5k + 10-step LM) with the LM
-    on the matrix-free LSQR kernel: the dense QR path's chunked-J build
-    SIGILLs this XLA build at E >= 8 (the known scan-of-steps compiler
-    crash, on a code path the trainer's fallback does not wrap), and the
-    whole-J vmap OOMs (22.5 G measured at E=8) — lsqr is the documented
-    f32-stable matrix-free twin and compiles everywhere."""
+    on the matrix-free LSQR kernel: the dense QR path's whole-J vmap needs
+    22.5 GB at E=8 — lsqr is the documented f32-stable matrix-free twin and
+    never forms J."""
     cfg = hv.helmholtz2d_quality()
     return dataclasses.replace(
         cfg, k=k, n_elements_x=elems, n_elements_y=elems,

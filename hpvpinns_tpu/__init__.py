@@ -1,4 +1,4 @@
-"""hp-VPINNs on TPU — a TPU-native JAX framework for variational
+"""hp-VPINNs in JAX — an accelerator framework for variational
 physics-informed neural networks with hp-domain-decomposition.
 
 Re-designed from scratch (not a port) with the capabilities of the reference
@@ -7,14 +7,14 @@ Petrov–Galerkin weak-form residuals of a dense-MLP PDE ansatz, tested against
 Jacobi-polynomial test functions on each element of a domain decomposition and
 integrated with Gauss–Lobatto–Jacobi quadrature.
 
-TPU-first design decisions (vs. the reference's per-element Python graph loop):
+Design decisions (vs. the reference's per-element Python graph loop):
   * quadrature nodes/weights and test-function basis tensors are precomputed
     offline in float64 and contracted on device — only the network forward and
     its derivatives are live compute (mirrors the reference's offline/online
     split, Poisson-1D.py:73-74,276-294);
   * all elements are batched into a leading array axis; the element loop
-    (Poisson-1D.py:64-96) becomes fused sum-factorized einsum contractions on
-    the MXU (ops/contract.py);
+    (Poisson-1D.py:64-96) becomes fused sum-factorized einsum contractions
+    (ops/contract.py);
   * network derivatives use forward-mode JVP applied to whole point batches —
     matmul-shaped, no per-point autodiff graphs (replaces nested tf.gradients,
     Poisson-1D.py:144-148);

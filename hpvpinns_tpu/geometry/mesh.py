@@ -8,7 +8,7 @@ xi in [-1,1] maps to x = x_e + (x_{e+1}-x_e)/2 * (xi+1) with jacobian
 [-1,-0.1,0.1,1] special case, Poisson-1D.py:270-273) are first-class.
 
 All per-element quantities are materialized as arrays with a leading element
-axis — the TPU sharding/vmap axis — instead of the reference's Python loop.
+axis — the device sharding/vmap axis — instead of the reference's Python loop.
 """
 
 from __future__ import annotations

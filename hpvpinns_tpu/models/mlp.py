@@ -11,11 +11,11 @@ activation(s_l * z) (Jagtap-et-al-style adaptive activation), enabled with
 like every other parameter.  Default off, matching the reference's effective
 behavior.
 
-TPU notes: parameters are a flat list of (W, b) so the forward pass is a chain
-of batched matmuls; `mlp_apply` is written for [P, d_in] point batches so
-forward-mode JVPs through it (ops/derivatives.py) stay matmul-shaped for the
-MXU.  Matmul precision is configurable because the variational residual needs
-more accumulation precision than bf16 MXU passes give by default.
+Layout notes: parameters are a flat list of (W, b) so the forward pass is a
+chain of batched matmuls; `mlp_apply` is written for [P, d_in] point batches so
+forward-mode JVPs through it (ops/derivatives.py) stay matmul-shaped.  Matmul
+precision is configurable because the variational residual needs more
+precision than reduced-precision (TF32/bf16) tensor-core matmuls give.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ class MLP:
 
     layers: tuple
     activation: str = "tanh"
-    precision: str = "highest"  # matmul precision for f32 on TPU
+    precision: str = "highest"  # float32 matmul precision (lax.Precision)
     adaptive_slope: bool = False  # trainable per-layer activation slope s_l
 
     def __post_init__(self):

@@ -207,8 +207,7 @@ def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_fo
     with jax.named_scope("vpinn_fields_2d"):
         f2d = fields_fn or (lambda *a, **k: scalar_fields_2d(u_fn, *a, **k))
         # form 1 (once-integrated) needs NO second derivatives: skip the
-        # second-order propagation streams entirely (~40% of the fields work,
-        # which is ~77% of the training step — MEASUREMENTS.md)
+        # second-order propagation streams entirely
         flds = f2d(elems.x, elems.y, firsts_only=(var_form == 1))
     jac = (elems.jac_x * elems.jac_y)[:, None, None]
     if var_form == 0:

@@ -12,7 +12,7 @@ with the quadrature weights folded into the basis matrices offline
 (Wphi[n, q] = w_q * phi_n(xi_q)).  The 2D case is *sum-factorized*: contract
 the fast (x) axis first, then the slow (y) axis — two batched matmuls instead
 of materializing the [Q^2, N_x*N_y] outer-product table the reference loops
-over.  Both shapes lower straight onto the TPU MXU via XLA dot_general.
+over.  Both shapes lower straight onto batched matmuls via XLA dot_general.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import jax
 import jax.numpy as jnp
 
 # The variational residual is numerically delicate (losses reach <1e-10 in the
-# reference's early-stop thresholds): always request full-precision MXU passes
-# for these contractions when running in float32.
+# reference's early-stop thresholds): always request full-float32 matmuls
+# (no reduced-precision tensor-core passes) for these contractions.
 _PREC = jax.lax.Precision.HIGHEST
 
 

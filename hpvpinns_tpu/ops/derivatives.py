@@ -7,7 +7,7 @@ nested JVPs applied to the *whole batched* forward function:
   * the MLP acts row-wise on X [P, d], so the directional derivative with a
     broadcast coordinate tangent e_k recovers the per-point partial du/dx_k;
   * one nested JVP yields (u, d_v u, d_vv u) in a single traced computation
-    that is a chain of batched matmuls — ideal for the MXU, with no per-point
+    that is a chain of batched matmuls, with no per-point
     autodiff graphs and no materialized Hessians.
 
 Forward-over-forward is the right AD mode here: inputs are 1-2 dimensional

@@ -6,7 +6,7 @@ graph-build loop with nested reverse-mode `tf.gradients`
 Here all elements' quadrature points are batched into one flat [E*Q, d] array
 and the derivatives come from *nested forward-mode JVPs* on the whole batch —
 each JVP is just another chain of batched matmuls through the MLP, so the
-entire field evaluation (u, u_x, u_xx, u_y, u_yy, u_t) stays MXU-shaped.
+entire field evaluation (u, u_x, u_xx, u_y, u_yy, u_t) stays matmul-shaped.
 
 Forward mode is the right AD direction: the network input dimension is 1-2,
 and only diagonal second derivatives are needed (no mixed terms in any of the

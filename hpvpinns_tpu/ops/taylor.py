@@ -14,8 +14,8 @@ in closed form — one traversal, all fields:
     a_kk   = act''(z) z_k^2 + act'(z) z_kk
 
 All five fields (u, u_x, u_xx, u_y, u_yy) share one activation evaluation and
-one traversal; every operation is a batched matmul or elementwise VPU op, and
-XLA fuses the elementwise chains between the MXU calls.  Ordinary reverse-mode
+one traversal; every operation is a batched matmul or an elementwise op, and
+XLA fuses the elementwise chains between the matmuls.  Ordinary reverse-mode
 AD differentiates straight through this, so training losses built on it get
 gradients for free.
 
@@ -81,15 +81,12 @@ def mlp_fields(spec: MLP, params, X, directions, second: bool = True):
     [P, out] arrays ordered like `directions`; seconds is () when
     second=False — the once-integrated weak forms (var_form 1) need no
     second derivatives, and skipping the hkk streams removes 2 of the 5
-    propagation matmul chains (fields are ~77% of the training step,
-    MEASUREMENTS.md).
+    propagation matmul chains.
 
-    Layout note (measured, benchmarks/MEASUREMENTS.md): propagating the
-    1 + 2*len(directions) streams as SEPARATE per-stream matmuls is ~25%
-    faster end-to-end than stacking them into one [S*P, H] matmul per layer —
-    the stack/concat materialization (and its transpose in the backward)
-    costs more HBM traffic than the extra dispatches cost in launches; XLA
-    already fuses the elementwise chains between the small matmuls.
+    Layout note: the 1 + 2*len(directions) streams propagate as SEPARATE
+    per-stream matmuls rather than one stacked [S*P, H] matmul per layer,
+    which avoids materializing the stack (and its transpose in the
+    backward); XLA fuses the elementwise chains between the small matmuls.
     """
     prec = jax.lax.Precision(spec.precision)
     dot = lambda A, W: jnp.dot(A, W, precision=prec)

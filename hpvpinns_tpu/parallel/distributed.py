@@ -1,18 +1,18 @@
-"""Multi-host initialization for TPU pods.
+"""Multi-process initialization.
 
 The reference is strictly single-process (CPU-pinned sessions,
-Poisson-1D.py:105); this module is the TPU-native scale-out entry: on a pod
-slice, every host process calls `initialize()` once before any JAX call, after
-which `jax.devices()` spans the whole slice and the element-sharded meshes in
-`parallel/sharding.py` work unchanged (they are host-count agnostic — meshes
-are built from `jax.devices()`, and GSPMD inserts DCN/ICI collectives as the
-sharding requires).
+Poisson-1D.py:105); this module is the scale-out entry: every process of a
+cluster calls `initialize()` once before any JAX call, after which
+`jax.devices()` spans every process's devices and the element-sharded meshes
+in `parallel/sharding.py` work unchanged (they are host-count agnostic —
+meshes are built from `jax.devices()`, and GSPMD inserts the cross-process
+collectives the sharding requires).
 
-On TPU pods the coordinator/process topology is auto-detected from the TPU
-metadata (jax.distributed.initialize() with no arguments); explicit
-coordinator_address/num_processes/process_id support manual CPU/GPU fleets.
-Single-process runs (num_processes == 1, or no cluster environment) are a
-no-op, so the same driver script works from a laptop to a pod.
+The coordinator address, process count and process id are passed
+explicitly or through the environment: nothing on a plain GPU or CPU host
+describes the cluster.  Single-process runs (num_processes == 1, or no
+cluster environment) are a no-op, so the same training script works from
+one device to many hosts.
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ def initialize(
     """Idempotent jax.distributed bring-up; returns the process topology.
 
     Argument defaults come from the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and, on
-    TPU pods, from the platform's auto-detection.  Returns
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).  Returns
     {"process_index", "process_count", "local_devices", "global_devices"}.
     """
     global _initialized

@@ -1,11 +1,11 @@
-"""Real multi-process (DCN-analog) execution check.
+"""Real multi-process execution check.
 
-SURVEY.md section 5 assigns the rebuild "XLA collectives over ICI/DCN via
-jax.distributed".  A TPU pod is not needed to prove the DCN code path: two
-LOCAL processes, each owning 4 virtual CPU devices
+SURVEY.md section 5 asks for cross-process XLA collectives via
+jax.distributed.  A multi-host cluster is not needed to prove that code
+path: two LOCAL processes, each owning 4 virtual CPU devices
 (xla_force_host_platform_device_count), form a genuine 2-process JAX cluster
 over a localhost coordinator — cross-process collectives run through the
-same distributed runtime a pod uses.
+same distributed runtime a multi-host cluster uses.
 
 `run_multiprocess_check()` (parent) spawns N children running
 `python -m hpvpinns_tpu.parallel.multihost_check --child`; every child

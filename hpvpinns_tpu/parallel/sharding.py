@@ -1,9 +1,9 @@
-"""Multi-chip parallelism over the hp-decomposition's element axis.
+"""Multi-device parallelism over the hp-decomposition's element axis.
 
 The reference is single-process CPU (sessions pinned at Poisson-1D.py:105);
 its *semantic* parallel axis is the element sum of the variational loss
 (Poisson-1D.py:64-96): elements couple only through the shared MLP weights and
-the summed loss.  That axis maps onto a TPU mesh:
+the summed loss.  That axis maps onto a device mesh:
 
   * element-indexed arrays (everything in `data["elements"]`, leading axis E)
     are laid out with `NamedSharding(mesh, P("elements"))`;
@@ -12,7 +12,8 @@ the summed loss.  That axis maps onto a TPU mesh:
   * the only communication the math needs is the all-reduce of per-element
     loss/grad contributions, which XLA inserts automatically for the GSPMD
     path (jit over sharded operands) or which `psum` provides explicitly in
-    the `shard_map` path.  Either way it rides ICI.
+    the `shard_map` path.  On a multi-GPU host XLA lowers it to an NCCL
+    all-reduce over NVLink.
 
 Both paths are provided: GSPMD (annotate + let XLA partition — the default
 used by the trainer) and an explicit `shard_map` formulation (manual control,

@@ -23,7 +23,7 @@ from hpvpinns_tpu.geometry.mesh import TensorMesh2D
 from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import advdiff_residual, variational_loss
 from hpvpinns_tpu.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_2d, make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu.utils.sampling import lhs_interval
@@ -309,7 +309,7 @@ def build(
 
     var_form, wb, V = cfg.var_form, cfg.lossb_weight, cfg.velocity
     inverse = cfg.inverse
-    mode = cfg.deriv_mode
+    mode = check_deriv_mode(cfg.deriv_mode)
 
     # Outflow boundary-layer input feature (layer_feature): the exact
     # solution has a layer of width eps/V at the outflow wall that a plain
@@ -512,10 +512,6 @@ def build(
     def _fields_fn(params):
         if mode == "taylor":
             return lambda x, y, **kw: taylor_fields_2d(spec, params["net"], x, y, **kw)
-        if mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_2d
-
-            return lambda x, y, **kw: pallas_fields_2d(spec, params["net"], x, y, **kw)
         return None
 
     def residual_fn(params, data):
@@ -568,7 +564,7 @@ def build(
             fields_fn=fields_fn, epsilon_x=eps_x_of(params, el.x),
         )
         lossv = variational_loss(res, el.mask, el.n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             lossv = jax.lax.psum(lossv, axis_name)
         ub_pred = u_fn(data["xb"])
         lossb = jnp.mean((data["ub"] - ub_pred) ** 2)

@@ -32,7 +32,7 @@ from hpvpinns_tpu.geometry.mesh import TensorMesh3D
 from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import advdiff2d_residual, variational_loss
 from hpvpinns_tpu.ops.taylor import taylor_fields_3d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_3d, make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu.utils.sampling import lhs_box, lhs_interval
@@ -167,7 +167,7 @@ def build(
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
     var_form, wb = cfg.var_form, cfg.lossb_weight
     inverse = cfg.inverse
-    mode = cfg.deriv_mode
+    mode = check_deriv_mode(cfg.deriv_mode)
     vx_true, vy_true = cfg.velocity
 
     def pde_init():
@@ -201,10 +201,6 @@ def build(
     def _fields_fn(params):
         if mode == "taylor":
             return lambda x, y, z, **kw: taylor_fields_3d(spec, params["net"], x, y, z, **kw)
-        if mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_3d
-
-            return lambda x, y, z, **kw: pallas_fields_3d(spec, params["net"], x, y, z, **kw)
         return None
 
     def residual_fn(params, data):
@@ -254,10 +250,6 @@ def build(
         el = data["elements"]
         if mode == "taylor":
             fields_fn = lambda x, y, z, **kw: taylor_fields_3d(spec, params["net"], x, y, z, **kw)
-        elif mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_3d
-
-            fields_fn = lambda x, y, z, **kw: pallas_fields_3d(spec, params["net"], x, y, z, **kw)
         else:
             fields_fn = None
         vx, vy = v_of(params)
@@ -268,7 +260,7 @@ def build(
             epsilon_x=ex, epsilon_y=ey,
         )
         lossv = variational_loss(res, el.mask, el.n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             lossv = jax.lax.psum(lossv, axis_name)
         ub_pred = u_fn(data["xb"])
         lossb = jnp.mean((data["ub"] - ub_pred) ** 2)

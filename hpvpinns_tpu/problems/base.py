@@ -24,6 +24,17 @@ import numpy as np
 from hpvpinns_tpu.models.mlp import MLP, init_mlp, mlp_apply
 
 
+DERIV_MODES = ("taylor", "jvp")
+
+
+def check_deriv_mode(mode: str) -> str:
+    """The derivative-field engine a config names: "taylor" (one-pass
+    propagation, ops/taylor.py) or "jvp" (nested JVPs, ops/fields.py)."""
+    if mode not in DERIV_MODES:
+        raise ValueError(f"unknown deriv_mode {mode!r}; expected one of {DERIV_MODES}")
+    return mode
+
+
 @dataclass
 class Problem:
     name: str

@@ -32,7 +32,7 @@ from hpvpinns_tpu.geometry.mesh import Interval1D, TensorMesh2D
 from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import helmholtz2d_residual, variational_loss
 from hpvpinns_tpu.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_2d, make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu.utils.sampling import lhs_box, lhs_interval
@@ -185,7 +185,7 @@ def build(
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
     var_form, wb = cfg.var_form, cfg.lossb_weight
-    mode = cfg.deriv_mode
+    mode = check_deriv_mode(cfg.deriv_mode)
     hard_bc = cfg.hard_bc
     if hard_bc:
         from hpvpinns_tpu.problems.base import make_composite_apply
@@ -213,10 +213,6 @@ def build(
         u_of = make_u_fn(params)
         if mode == "taylor":
             fields_fn = lambda x, y, **kw: taylor_fields_2d(spec, params["net"], x, y, **kw)
-        elif mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_2d
-
-            fields_fn = lambda x, y, **kw: pallas_fields_2d(spec, params["net"], x, y, **kw)
         else:
             fields_fn = None
         el = data["elements"]
@@ -260,7 +256,7 @@ def build(
         lossb = jnp.mean((data["ub"] - ub_pred) ** 2)
         res = residual_fn(params, data)
         lossv = variational_loss(res, el.mask, el.n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             import jax as _jax
 
             lossv = _jax.lax.psum(lossv, axis_name)

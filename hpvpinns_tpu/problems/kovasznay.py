@@ -302,7 +302,7 @@ def build(cfg: KovasznayConfig, rng: np.random.Generator | None = None) -> Probl
             w_fn, el, data["basis_x"], data["basis_y"], var_form, nu_of(params)
         )
         lossv = variational_loss(_weighted(res), el.mask[:, None], el.n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             lossv = jax.lax.psum(lossv, axis_name)
         wb_pred = w_fn(data["xb"])
         if not cfg.bc_pressure:

@@ -19,7 +19,7 @@ from hpvpinns_tpu.geometry.mesh import Interval1D
 from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import poisson1d_residual, variational_loss
 from hpvpinns_tpu.ops.taylor import taylor_fields_1d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_1d, make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
 
@@ -103,7 +103,9 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
     var_form = cfg.var_form
     lossb_weight = cfg.lossb_weight
-    mode = "jvp" if hard_bc else cfg.deriv_mode  # composite ansatz: generic AD
+    mode = check_deriv_mode(cfg.deriv_mode)
+    if hard_bc:
+        mode = "jvp"  # composite ansatz: generic AD
 
     if hard_bc:
         from hpvpinns_tpu.problems.base import make_composite_apply
@@ -121,10 +123,6 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
         u_fn = make_u_fn(params)
         if mode == "taylor":
             fields_fn = lambda x: taylor_fields_1d(spec, params["net"], x)
-        elif mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_1d
-
-            fields_fn = lambda x: pallas_fields_1d(spec, params["net"], x)
         else:
             fields_fn = None
         res = poisson1d_residual(u_fn, data["elements"], data["basis"], var_form, fields_fn=fields_fn)
@@ -134,7 +132,7 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
         u_fn = make_u_fn(params)
         res = residual_fn(params, data)
         lossv = variational_loss(res, data["elements"].mask, data["elements"].n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             lossv = jax.lax.psum(lossv, axis_name)
         ub_pred = u_fn(data["xb"])
         lossb = jnp.mean((data["ub"] - ub_pred) ** 2)

@@ -19,7 +19,7 @@ from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import poisson2d_residual, variational_loss
 from hpvpinns_tpu.ops.fields import scalar_fields_2d
 from hpvpinns_tpu.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_2d
 from hpvpinns_tpu.problems.build import make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
@@ -145,7 +145,7 @@ def build(
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
     var_form, scheme, wb = cfg.var_form, cfg.scheme, cfg.lossb_weight
-    mode = cfg.deriv_mode
+    mode = check_deriv_mode(cfg.deriv_mode)
     if scheme not in ("VPINNs", "PINNs"):
         raise ValueError(f"scheme must be 'VPINNs' or 'PINNs'; got {scheme!r}")
     if scheme == "VPINNs" and var_form == 2:
@@ -188,10 +188,6 @@ def build(
         u_fn = make_u_fn(params)
         if mode == "taylor":
             fields_fn = lambda x, y, **kw: taylor_fields_2d(spec, params["net"], x, y, **kw)
-        elif mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_2d
-
-            fields_fn = lambda x, y, **kw: pallas_fields_2d(spec, params["net"], x, y, **kw)
         else:
             fields_fn = None
         el = data["elements"]
@@ -236,7 +232,7 @@ def build(
         if scheme == "VPINNs":
             res = residual_fn(params, data)
             lossv = variational_loss(res, el.mask, el.n_test)
-            if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+            if axis_name is not None:  # explicit all-reduce (shard_map path)
                 lossv = jax.lax.psum(lossv, axis_name)
             loss = wb * lossb + lossv
             aux["lossv"] = lossv

@@ -22,7 +22,7 @@ from hpvpinns_tpu.geometry.mesh import TensorMesh3D
 from hpvpinns_tpu.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu.ops.assembly import poisson3d_residual, variational_loss
 from hpvpinns_tpu.ops.taylor import taylor_fields_3d
-from hpvpinns_tpu.problems.base import Problem, make_net_init
+from hpvpinns_tpu.problems.base import Problem, check_deriv_mode, make_net_init
 from hpvpinns_tpu.problems.build import build_elements_3d, make_weighted_basis
 from hpvpinns_tpu.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu.utils.sampling import lhs_box
@@ -127,9 +127,7 @@ def build(
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
     var_form, wb = cfg.var_form, cfg.lossb_weight
-    mode = cfg.deriv_mode
-    if mode not in ("taylor", "jvp", "pallas"):
-        raise ValueError(f"unknown deriv_mode {mode!r}")
+    mode = check_deriv_mode(cfg.deriv_mode)
     hard_bc = getattr(cfg, "hard_bc", False) or lift_fn is not None or envelope_fn is not None
     if hard_bc:
         from hpvpinns_tpu.problems.base import make_composite_apply
@@ -151,10 +149,6 @@ def build(
         el = data["elements"]
         if mode == "taylor":
             fields_fn = lambda x, y, z, **kw: taylor_fields_3d(spec, params["net"], x, y, z, **kw)
-        elif mode == "pallas":
-            from hpvpinns_tpu.ops.pallas_fields import pallas_fields_3d
-
-            fields_fn = lambda x, y, z, **kw: pallas_fields_3d(spec, params["net"], x, y, z, **kw)
         else:
             fields_fn = None
         res = poisson3d_residual(

@@ -428,7 +428,7 @@ def build(
             var_form, nu_of(params),
         )
         lossv = variational_loss(_weighted(_mask_eq(res)), el.mask[:, None], el.n_test)
-        if axis_name is not None:  # explicit ICI all-reduce (shard_map path)
+        if axis_name is not None:  # explicit all-reduce (shard_map path)
             lossv = jax.lax.psum(lossv, axis_name)
         wb_pred = w_fn(data["xb"])
         if not cfg.bc_pressure:

@@ -11,7 +11,7 @@ identities the reference hardcodes (Poisson-1D.py:164-183):
 with P_m = 0 for m < 0 (making the reference's n=1,2 special cases uniform).
 
 Everything here is evaluated *offline* on host in float64 and shipped to the
-device as constant tensors of shape [N, Q] — the TPU-side variational
+device as constant tensors of shape [N, Q] — the device-side variational
 assembly is a pure contraction against these (see ops/assembly.py).
 """
 

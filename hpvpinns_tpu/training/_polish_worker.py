@@ -1,8 +1,8 @@
 """Subprocess entry point for the host-f64 LM polish (training/hybrid.py).
 
-Forces the CPU backend and float64 BEFORE anything builds (the parent
-process keeps its TPU backend; a JAX process cannot switch platforms
-after backend init), rebuilds the problem from the JSON spec at
+Forces the CPU backend and float64 BEFORE any backend starts, so the
+child never opens the accelerator the parent process holds, rebuilds the
+problem from the JSON spec at
 ``dtype="float64"``, warm-starts the Gauss-Newton/LM phase from the
 parent's parameters, and writes the polished leaves + an f64 evaluation
 summary back into the exchange directory.

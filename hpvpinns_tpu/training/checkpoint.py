@@ -3,7 +3,7 @@
 The reference has no model checkpointing (no tf.train.Saver anywhere); its
 only persistence is the AdvDiff results record (scipy.io.savemat,
 AdvDiff.py:500-508 — covered by utils/records.py).  Periodic parameter +
-optimizer-state checkpointing with resume is the TPU-native equivalent of the
+optimizer-state checkpointing with resume is this framework's answer to the
 missing failure-recovery story (SURVEY.md section 5).
 """
 

@@ -2,12 +2,11 @@
 
 The methodology of record runs multi-seed studies SERIALLY (the reference
 fixes one seed, Poisson-1D.py:26-27; this repo's robustness tables re-run
-training per seed, benchmarks/MEASUREMENTS.md).  On TPU that is waste: the
-hp-VPINN step at these sizes is launch/HBM-overhead-bound, not MXU-bound
-(tangent matmuls are ~50 us of a ~185 us forward, MEASUREMENTS.md), so
-stacking a leading seed axis over the parameters and vmapping the
-loss-and-grad turns S sequential runs into one step whose wall-clock grows
-far slower than S.
+training per seed, benchmarks/MEASUREMENTS.md).  At these sizes one
+network's step is small matmuls plus elementwise work, far too little to
+fill an accelerator, so stacking a leading seed axis over the parameters and
+vmapping the loss-and-grad turns S sequential runs into one step that does S
+times the work per launch.
 
 Everything else is unchanged: the data pytree is shared (broadcast into the
 vmap), Adam is elementwise so `optax.flatten(adam)` applies to the stacked
@@ -26,7 +25,7 @@ import numpy as np
 
 from hpvpinns_tpu.config import TrainConfig
 from hpvpinns_tpu.problems.base import Problem
-from hpvpinns_tpu.training.trainer import make_optimizer, _is_compile_crash
+from hpvpinns_tpu.training.trainer import make_optimizer
 
 
 @dataclass
@@ -83,31 +82,6 @@ def _build_ens_chunk(loss_fn, opt, n_steps: int):
     return jax.jit(chunk, donate_argnums=(0, 1))
 
 
-def _build_ens_stepwise_chunk(loss_fn, opt, n_steps: int):
-    """Per-step jit fallback for scan-compile-crash XLA builds."""
-
-    def ens_grad(params_stack, data):
-        def one(p):
-            (_, aux), g = jax.value_and_grad(loss_fn, has_aux=True)(p, data)
-            return g, aux
-
-        return jax.vmap(one)(params_stack)
-
-    @jax.jit
-    def step(params_stack, opt_state, data):
-        grads, aux = ens_grad(params_stack, data)
-        updates, opt_state = opt.update(grads, opt_state, params_stack)
-        return jax.tree.map(lambda a, u: a + u, params_stack, updates), opt_state, aux
-
-    def chunk(params_stack, opt_state, data):
-        aux = None
-        for _ in range(n_steps):
-            params_stack, opt_state, aux = step(params_stack, opt_state, data)
-        return params_stack, opt_state, aux
-
-    return chunk
-
-
 def train_ensemble(
     problem: Problem,
     cfg: Optional[TrainConfig] = None,
@@ -143,7 +117,6 @@ def train_ensemble(
 
     check = max(1, cfg.check_every)
     chunk_fn = _build_ens_chunk(loss_fn, opt, check)
-    fallback = True
 
     records = []
     t0 = time.perf_counter()
@@ -154,16 +127,7 @@ def train_ensemble(
         n = min(check, cfg.iterations - it)
         if n != check:
             chunk_fn = _build_ens_chunk(loss_fn, opt, n)
-        try:
-            params_stack, opt_state, aux = chunk_fn(params_stack, opt_state, data)
-        except Exception as err:
-            if not (fallback and _is_compile_crash(err)):
-                raise
-            if verbose:
-                print(f"ensemble scan compile failed ({str(err)[:80]}); per-step jit fallback")
-            fallback = False
-            chunk_fn = _build_ens_stepwise_chunk(loss_fn, opt, n)
-            params_stack, opt_state, aux = chunk_fn(params_stack, opt_state, data)
+        params_stack, opt_state, aux = chunk_fn(params_stack, opt_state, data)
         it += n
         aux_host = {k: np.asarray(v) for k, v in aux.items()}
         if t_warm is None:

@@ -24,7 +24,7 @@ slab's parameters — the solution evolves smoothly, so the previous slab is
 a better init than Xavier), and evaluated against the global exact
 solution on each slab's own test grid.
 
-TPU notes: every slab is a full jitted train (Adam/L-BFGS/GN phases,
+Device notes: every slab is a full jitted train (Adam/L-BFGS/GN phases,
 element-sharded under a mesh if given); the only host work between slabs
 is one batched prediction at the interface (the IC handoff).
 """

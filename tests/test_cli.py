@@ -427,3 +427,51 @@ def test_run_seeds_with_mesh(capsys):
     assert rc == 0
     s = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert s["seeds"] == 2 and len(s["per_seed"]) == 2
+
+
+@pytest.fixture
+def restore_cache_config():
+    import jax
+
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    yield
+    for k, v in saved.items():
+        jax.config.update(k, v)
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch, restore_cache_config):
+    import os
+
+    import jax
+
+    from hpvpinns_tpu import cli
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    cli._enable_compile_cache()
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(cli.__file__)))
+    assert jax.config.jax_compilation_cache_dir == os.path.join(checkout, ".jax_cache")
+    assert cli.COMPILE_CACHE_DIR == os.path.join(checkout, ".jax_cache")
+
+
+def test_compile_cache_env_var_sets_nothing(monkeypatch, restore_cache_config):
+    import jax
+
+    from hpvpinns_tpu import cli
+
+    jax.config.update("jax_compilation_cache_dir", "/sentinel")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+    cli._enable_compile_cache()
+    assert jax.config.jax_compilation_cache_dir == "/sentinel"
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_maybe_enable_x64_leaves_platforms(dtype):
+    import jax
+
+    from hpvpinns_tpu import cli
+
+    before = jax.config.jax_platforms
+    cli._maybe_enable_x64(dtype)
+    assert jax.config.jax_platforms == before
+    assert jax.config.jax_enable_x64  # conftest enables it; f64 must keep it

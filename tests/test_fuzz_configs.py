@@ -159,7 +159,7 @@ def test_fuzz_helmholtz2d(trial):
 
 def test_matmul_precision_reaches_spec():
     """matmul_precision flows from every problem config into the MLP spec
-    (it controls the bf16 MXU pass count on the f32 TPU path)."""
+    (on the GPU it decides between full-FP32 and TF32 float32 matmuls)."""
     import hpvpinns_tpu as hv
 
     for cfg_cls in (

@@ -1,8 +1,8 @@
-"""Hybrid chip-f32 + host-f64 LM polish (training/hybrid.py).
+"""Hybrid f32 device training + host-f64 LM polish (training/hybrid.py).
 
 The subprocess worker is exercised for real (it is the production path:
-a TPU-backed process cannot switch platforms, so the polish ALWAYS runs
-out-of-process).  Configs cross the boundary as JSON specs; parameters
+the polish ALWAYS runs out-of-process on the CPU, so it never opens the
+accelerator the training process holds).  Configs cross the boundary as JSON specs; parameters
 as flattened npz leaves.
 """
 

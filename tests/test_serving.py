@@ -2,7 +2,7 @@
 
 The reference has no deployment path (its trained nets die with the TF1
 session process); these tests pin the rebuild's serving contract:
-export -> serialize -> deserialize -> call must reproduce the live ansatz
+export -> save -> load -> call must reproduce the live ansatz
 bit-for-bit-ish (same backend, same dtype), at ANY batch size (symbolic
 batch dim), for plain-MLP AND composite hard-BC ansatzes, and the artifact
 directory must be self-describing (config rebuilds the exact Problem).
@@ -19,14 +19,13 @@ import hpvpinns_tpu as hv
 from hpvpinns_tpu import serving
 
 
-def _roundtrip(cfg, seed=0):
+def _roundtrip(cfg, path, seed=0):
+    """Artifact written by save_model and read back by load_model: the
+    StableHLO module plus the calling convention rebuilt from meta.json."""
     prob = hv.build(cfg)
     params = prob.init_params(jax.random.key(seed))
-    exported = serving.export_model(prob, params, platforms=("cpu",))
-    from jax import export as jexport
-
-    exp2 = jexport.deserialize(bytearray(exported.serialize()))
-    return prob, params, exp2
+    hv.save_model(str(path), prob, params, platforms=("cpu",))
+    return prob, params, hv.load_model(str(path)).exported
 
 
 @pytest.mark.parametrize(
@@ -37,8 +36,8 @@ def _roundtrip(cfg, seed=0):
     ],
     ids=["poisson1d", "kovasznay_hardbc"],
 )
-def test_export_roundtrip_matches_live_apply(cfg):
-    prob, params, exp = _roundtrip(cfg)
+def test_export_roundtrip_matches_live_apply(cfg, tmp_path):
+    prob, params, exp = _roundtrip(cfg, tmp_path / "art")
     dtype = np.dtype(serving._compute_dtype(params))
     X = np.asarray(prob.test_points[:67], dtype=dtype)
     got = np.asarray(exp.call(X))
@@ -46,8 +45,8 @@ def test_export_roundtrip_matches_live_apply(cfg):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
 
 
-def test_symbolic_batch_any_size():
-    prob, params, exp = _roundtrip(hv.Poisson1DConfig())
+def test_symbolic_batch_any_size(tmp_path):
+    prob, params, exp = _roundtrip(hv.Poisson1DConfig(), tmp_path / "art")
     dtype = np.dtype(serving._compute_dtype(params))
     for n in (1, 13, 200):
         X = np.linspace(-1.0, 1.0, n, dtype=dtype).reshape(-1, 1)
@@ -64,7 +63,7 @@ def test_save_load_artifact_dir(tmp_path):
     meta = hv.save_model(str(tmp_path / "art"), prob, params, platforms=("cpu",))
     assert meta["problem"] == "poisson2d"
     assert meta["config_class"] == "Poisson2DConfig"
-    assert os.path.exists(tmp_path / "art" / "model.jaxexport")
+    assert os.path.exists(tmp_path / "art" / "model.stablehlo")
     with open(tmp_path / "art" / "meta.json") as f:
         assert json.load(f)["d_in"] == 2
 
@@ -96,13 +95,16 @@ def test_config_from_meta_roundtrips_tuples():
 
 
 def test_f64_artifact_drops_tpu_platform_tag(tmp_path):
-    # TPU rejects x64 programs; the default cpu+tpu tagging must degrade to
-    # cpu-only for f64 models instead of shipping a poisoned artifact.
+    # The GPU runs float64, so an f64 artifact keeps the default cpu+cuda
+    # tagging (no platform is dropped) and still serves on the CPU.
     prob = hv.build(hv.Poisson1DConfig(dtype="float64"))
     params = prob.init_params(jax.random.key(0))
     assert serving._compute_dtype(params) == np.float64
     meta = hv.save_model(str(tmp_path / "a"), prob, params)
-    assert meta["platforms"] == ["cpu"]
+    assert meta["platforms"] == ["cpu", "cuda"]
+    X = np.asarray(prob.test_points[:9])
+    got = hv.load_model(str(tmp_path / "a")).predict(X)
+    np.testing.assert_allclose(got, np.asarray(prob.apply(params, X)), rtol=1e-12, atol=0)
 
 
 def test_manufactured_artifact_refuses_wrong_truth_check(tmp_path):
@@ -147,3 +149,39 @@ def test_cli_export_and_serve(tmp_path, capsys):
     assert np.isfinite(out["rel_l2"])
     with np.load(tmp_path / "pred.npz") as z:
         assert z["Y"].shape[0] == out["n_points"]
+
+
+def test_default_platforms_are_cpu_and_cuda(tmp_path):
+    prob = hv.build(hv.Poisson2DConfig())
+    params = prob.init_params(jax.random.key(2))
+    meta = hv.save_model(str(tmp_path / "a"), prob, params)
+    assert meta["platforms"] == ["cpu", "cuda"]
+    X = np.asarray(prob.test_points[:17])
+    got = hv.load_model(str(tmp_path / "a")).predict(X)
+    np.testing.assert_allclose(got, np.asarray(prob.apply(params, X)), rtol=0, atol=5e-6)
+
+
+def test_artifact_needs_no_flatbuffers(tmp_path, monkeypatch):
+    """Saving and loading never touch jax.export's flatbuffers serializer,
+    which a serving host need not have installed."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "flatbuffers", None)  # import now fails
+    monkeypatch.delitem(sys.modules, "jax._src.export.serialization", raising=False)
+    prob = hv.build(hv.Poisson1DConfig())
+    params = prob.init_params(jax.random.key(0))
+    hv.save_model(str(tmp_path / "a"), prob, params)
+    X = np.linspace(-1.0, 1.0, 5, dtype=np.float32).reshape(-1, 1)
+    got = hv.load_model(str(tmp_path / "a")).predict(X)
+    np.testing.assert_allclose(got, np.asarray(prob.apply(params, X)), rtol=0, atol=5e-6)
+
+
+def test_load_rejects_other_format_version(tmp_path):
+    prob = hv.build(hv.Poisson1DConfig())
+    hv.save_model(str(tmp_path / "a"), prob, prob.init_params(jax.random.key(0)))
+    meta_path = tmp_path / "a" / "meta.json"
+    meta = json.loads(meta_path.read_text())
+    meta["format_version"] = 1
+    meta_path.write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="re-export"):
+        hv.load_model(str(tmp_path / "a"))

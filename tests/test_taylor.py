@@ -1,5 +1,7 @@
 """Fused Taylor-mode propagation vs nested-JVP oracle (ops/taylor.py)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,13 +107,47 @@ def test_adaptive_slope_trains_and_pallas_rejects():
     slopes = [float(l["s"]) for l in res.params["net"] if "s" in l]
     assert slopes and any(abs(s - 1.0) > 1e-4 for s in slopes)
 
-    import dataclasses
 
-    with pytest.raises(ValueError, match="adaptive_slope"):
-        bad = hv.build(dataclasses.replace(cfg, deriv_mode="pallas"))
-        import jax
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        hv.Poisson1DConfig(),
+        hv.Poisson2DConfig(),
+        hv.Poisson3DConfig(),
+        hv.Helmholtz2DConfig(),
+        hv.AdvDiffConfig(),
+        hv.AdvDiff2DConfig(),
+        hv.BurgersConfig(),
+    ],
+    ids=lambda c: type(c).__name__,
+)
+def test_unknown_deriv_mode_raises(cfg):
+    """Only the two XLA engines exist; any other deriv_mode (the removed
+    "pallas" among them) fails at build time instead of falling through."""
+    with pytest.raises(ValueError, match="unknown deriv_mode 'pallas'"):
+        hv.build(dataclasses.replace(cfg, deriv_mode="pallas"))
 
-        bad.loss_fn(bad.init_params(jax.random.key(0)), bad.data)
+
+def test_bench_scale_f32_matches_f64():
+    """The bench-scale problem (64 elements, 16x16 quadrature, 10x10 test
+    functions) in float32 at matmul precision "highest" matches its float64
+    twin: loss to 1e-5 and gradient to 1e-4 relative (the tolerances
+    chip_smoke.py holds the GPU to), for both derivative engines."""
+    import jax
+
+    for mode in ("taylor", "jvp"):
+        cfg = dataclasses.replace(hv.poisson2d_scaled(8, 16, 10), deriv_mode=mode)
+        p32 = hv.build(cfg)
+        p64 = hv.build(dataclasses.replace(cfg, dtype="float64"))
+        params = p32.init_params(jax.random.key(0))
+        params64 = jax.tree.map(lambda a: np.asarray(a, np.float64), params)
+        grad_fn = lambda prob, p: jax.jit(jax.value_and_grad(prob.loss_fn, has_aux=True))(p, prob.data)
+        (l32, _), g32 = grad_fn(p32, params)
+        (l64, _), g64 = grad_fn(p64, params64)
+        assert abs(float(l32) - float(l64)) <= 1e-5 * abs(float(l64)), mode
+        f32 = np.concatenate([np.ravel(x) for x in jax.tree.leaves(g32)])
+        f64 = np.concatenate([np.ravel(x) for x in jax.tree.leaves(g64)])
+        assert np.linalg.norm(f32 - f64) <= 1e-4 * np.linalg.norm(f64), mode
 
 
 def test_firsts_only_matches_full_fields_across_engines():

@@ -127,58 +127,6 @@ def test_profiler_trace_writes(tmp_path):
     assert isinstance(stats, dict)
 
 
-def test_scan_crash_fallback_engages(monkeypatch):
-    """A JaxRuntimeError on the first compile of a chunk length must trigger
-    the per-step fallback (the broadened predicate: exception TYPE, any fresh
-    chunk length, both phases) and training completes normally."""
-    import jax
-
-    import hpvpinns_tpu.training.trainer as T
-
-    real_build = T._build_chunk
-    state = {"raised": False}
-
-    def flaky_build(loss_fn, opt, n):
-        fn = real_build(loss_fn, opt, n)
-
-        def wrapper(p, s, d):
-            if not state["raised"]:
-                state["raised"] = True
-                raise jax.errors.JaxRuntimeError("INTERNAL: simulated compile SIGILL")
-            return fn(p, s, d)
-
-        return wrapper
-
-    monkeypatch.setattr(T, "_build_chunk", flaky_build)
-    prob = _tiny_problem()
-    res = T.train(prob, hv.TrainConfig(iterations=30, check_every=10), verbose=False)
-    assert state["raised"]
-    assert res.iterations_run == 30
-    assert np.isfinite(res.final_aux["loss"])
-    np.testing.assert_array_equal(res.history["iteration"], [10, 20, 30])
-
-
-def test_bench_uses_trainer_crash_predicate():
-    """bench.py must share the trainer's _is_compile_crash predicate rather
-    than re-implementing a weaker string match (round-2 VERDICT item 7): a
-    drift here is a real fallback-miss risk on the SIGILL-prone XLA builds
-    the repo documents."""
-    import ast
-    import pathlib
-
-    src = (pathlib.Path(__file__).parent.parent / "bench.py").read_text()
-    tree = ast.parse(src)
-    imported = [
-        alias.name
-        for node in ast.walk(tree)
-        if isinstance(node, ast.ImportFrom)
-        and node.module == "hpvpinns_tpu.training.trainer"
-        for alias in node.names
-    ]
-    assert "_is_compile_crash" in imported
-    assert '"compile" in str' not in src and "'compile' in str" not in src
-
-
 def test_checkpoint_cadence_non_multiple(tmp_path):
     """checkpoint_every=25 with check_every=10 must save on a regular >=25-iter
     cadence (30, 60, 90) — not the irregular 30, 55, 80 the old modulo trigger
